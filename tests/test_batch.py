@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.engine.batch import decode_batch
-from jpeg_gpu_tpu.parallel.mesh import make_mesh
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.engine.batch import decode_batch
+from jaxjpeg.parallel.mesh import make_mesh
+from jaxjpeg.testing import corpus
 
 
 def _corpus():
@@ -25,7 +25,7 @@ def test_batch_matches_single_decode():
     outs = decode_batch(datas)
     assert len(outs) == len(datas)
     for data, got in zip(datas, outs):
-        ref = decode(data, out="rgb", impl="tpu")
+        ref = decode(data, out="rgb", impl="device")
         np.testing.assert_array_equal(got, ref)
 
 
@@ -34,7 +34,7 @@ def test_batch_sharded_on_mesh():
     mesh = make_mesh(8, space=2)
     outs = decode_batch(datas, mesh=mesh)
     for data, got in zip(datas, outs):
-        ref = decode(data, out="rgb", impl="tpu")
+        ref = decode(data, out="rgb", impl="device")
         np.testing.assert_array_equal(got, ref)
 
 
@@ -43,12 +43,12 @@ def test_batch_sharded_data_only_mesh():
     mesh = make_mesh(8, space=1)
     outs = decode_batch(datas, mesh=mesh)
     for data, got in zip(datas, outs):
-        np.testing.assert_array_equal(got, decode(data, out="rgb", impl="tpu"))
+        np.testing.assert_array_equal(got, decode(data, out="rgb", impl="device"))
 
 
 def test_decode_batch_device_mixed_tables():
     """Corpus device decode: same geometry, different Huffman tables."""
-    from jpeg_gpu_tpu.engine.batch import decode_batch_device
+    from jaxjpeg.engine.batch import decode_batch_device
 
     datas = []
     for seed, q in [(0, 70), (1, 92), (2, 85)]:
@@ -78,7 +78,7 @@ def test_bucket_key_separates_sampling_factors():
     b = corpus.own_jpeg(img, subsampling="4:4:4-2x2", quality=85).data
     outs = decode_batch([a, b])
     for data, got in zip((a, b), outs):
-        ref = decode(data, out="rgb", impl="tpu")
+        ref = decode(data, out="rgb", impl="device")
         np.testing.assert_array_equal(got, ref)
 
 
@@ -87,7 +87,7 @@ def test_decode_batch_device_resident():
     the with-download path; per-image flags are clean."""
     import jax
     import jax.numpy as jnp  # noqa: F401
-    from jpeg_gpu_tpu.engine.batch import (
+    from jaxjpeg.engine.batch import (
         decode_batch_device,
         decode_batch_device_resident,
     )
@@ -112,7 +112,7 @@ def test_decode_batch_device_resident():
 
 def test_decode_batch_device_resident_rejects_mixed_buckets():
     import pytest
-    from jpeg_gpu_tpu.engine.batch import decode_batch_device_resident
+    from jaxjpeg.engine.batch import decode_batch_device_resident
 
     datas = [
         corpus.pil_jpeg(
@@ -131,9 +131,9 @@ def test_decode_batch_device_resident_rejects_mixed_buckets():
 def test_decode_batch_device_flags_corrupt_image():
     """The reduced per-image error flags still catch corruption."""
     import pytest
-    from jpeg_gpu_tpu.engine.batch import decode_batch_device
-    from jpeg_gpu_tpu.errors import JpegFormatError
-    from jpeg_gpu_tpu.host.parser import parse as _parse
+    from jaxjpeg.engine.batch import decode_batch_device
+    from jaxjpeg.errors import JpegFormatError
+    from jaxjpeg.host.parser import parse as _parse
 
     datas = [
         corpus.pil_jpeg(

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.cli import main
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg.cli import main
+from jaxjpeg.testing import corpus
 
 
 @pytest.fixture()
@@ -22,7 +22,7 @@ def test_cli_no_gpu_alias(jpg, capsys):
 
 def test_cli_no_cpu_alias(jpg, capsys):
     assert main(["--no-cpu", jpg]) == 0
-    assert "(tpu," in capsys.readouterr().out
+    assert "(device," in capsys.readouterr().out
 
 
 def test_cli_no_gpu_no_cpu_conflict(jpg):

@@ -1,15 +1,15 @@
-"""End-to-end decoder backend tests: host + tpu(device pipeline) vs oracles.
+"""End-to-end decoder backend tests: host + device pipeline vs oracles.
 
 The dual-backend differential strategy of the reference (--impl libjpeg vs
 --impl xjpeg behind one vtbl, jpeg_gpu.c:546-557) applied three ways:
-PIL oracle vs HostDecoder vs TpuDecoder, across every stage cut.
+PIL oracle vs HostDecoder vs DeviceDecoder, across every stage cut.
 """
 
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import OutputStage, decode, get_decoder
-from jpeg_gpu_tpu.testing import corpus, oracle
+from jaxjpeg import OutputStage, decode, get_decoder
+from jaxjpeg.testing import corpus, oracle
 
 ALL_MODES = ["mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -18,17 +18,17 @@ def test_gray_rgb_bit_exact_vs_pil():
     img = corpus.synthetic_gray(64, 48, seed=1)
     data = corpus.pil_jpeg(img, quality=88)
     got_host = decode(data, out="rgb", impl="host")
-    got_tpu = decode(data, out="rgb", impl="tpu")
+    got_dev = decode(data, out="rgb", impl="device")
     golden = decode(data, out="rgb", impl="pil")
     np.testing.assert_array_equal(got_host, golden)
-    np.testing.assert_array_equal(got_tpu, golden)
+    np.testing.assert_array_equal(got_dev, golden)
 
 
 def test_yuv_stage_bit_exact_vs_pil_444():
     img = corpus.synthetic_rgb(40, 56, seed=2)
     data = corpus.pil_jpeg(img, quality=90, subsampling="4:4:4")
     golden = oracle.pil_decode_ycbcr(data)
-    for impl in ("host", "tpu"):
+    for impl in ("host", "device"):
         out = decode(data, out="yuv", impl=impl)
         for ci in range(3):
             np.testing.assert_array_equal(out.planes[ci], golden[..., ci])
@@ -40,20 +40,20 @@ def test_rgb_subsampled_psnr_vs_pil(subsampling):
     img = corpus.synthetic_rgb(72, 96, seed=3)
     data = corpus.pil_jpeg(img, quality=90, subsampling=subsampling)
     golden = decode(data, out="rgb", impl="pil")
-    for impl in ("host", "tpu"):
+    for impl in ("host", "device"):
         got = decode(data, out="rgb", impl=impl)
         assert got.shape == golden.shape
         assert oracle.psnr(got, golden) > 30.0, impl
 
 
-def test_host_and_tpu_rgb_identical():
-    """Host (numpy) and TPU (jnp) exact paths must agree bit for bit."""
+def test_host_and_device_rgb_identical():
+    """Host (numpy) and device (jnp) exact paths must agree bit for bit."""
     for mode in ALL_MODES:
         img = corpus.synthetic_rgb(33, 41, seed=4)
         enc = corpus.own_jpeg(img, subsampling=mode, quality=75)
         host = decode(enc.data, out="rgb", impl="host")
-        tpu = decode(enc.data, out="rgb", impl="tpu")
-        np.testing.assert_array_equal(host, tpu, err_msg=mode)
+        dev = decode(enc.data, out="rgb", impl="device")
+        np.testing.assert_array_equal(host, dev, err_msg=mode)
 
 
 @pytest.mark.parametrize("stage", ["quant", "dct"])
@@ -61,15 +61,15 @@ def test_coef_stages_match(stage):
     img = corpus.synthetic_rgb(32, 32, seed=5)
     enc = corpus.own_jpeg(img, subsampling="4:2:0", quality=80)
     host = decode(enc.data, out=stage, impl="host")
-    tpu = decode(enc.data, out=stage, impl="tpu")
-    for a, b in zip(host.coefs, tpu.coefs):
+    dev = decode(enc.data, out=stage, impl="device")
+    for a, b in zip(host.coefs, dev.coefs):
         np.testing.assert_array_equal(a, b)
 
 
 def test_pack_stage_available():
     img = corpus.synthetic_gray(24, 24, seed=6)
     enc = corpus.own_jpeg(img, quality=80)
-    out = decode(enc.data, out="pack", impl="tpu")
+    out = decode(enc.data, out="pack", impl="device")
     assert out.pack is not None and len(out.pack) > 0
     assert out.index[0].shape == (3, 3)
 
@@ -77,7 +77,7 @@ def test_pack_stage_available():
 def test_decoder_reuse_and_reset():
     img = corpus.synthetic_gray(16, 16, seed=7)
     data = corpus.pil_jpeg(img, quality=85)
-    dec = get_decoder(data, impl="tpu")
+    dec = get_decoder(data, impl="device")
     hdr = dec.decode_header()
     assert (hdr.width, hdr.height) == (16, 16)
     a = dec.decode("rgb")
@@ -89,15 +89,15 @@ def test_decoder_reuse_and_reset():
 def test_fast_path_close_to_exact():
     img = corpus.synthetic_rgb(48, 48, seed=8)
     data = corpus.pil_jpeg(img, quality=90, subsampling="4:2:0")
-    exact = decode(data, out="rgb", impl="tpu", exact=True)
-    fast = decode(data, out="rgb", impl="tpu", exact=False)
+    exact = decode(data, out="rgb", impl="device", exact=True)
+    fast = decode(data, out="rgb", impl="device", exact=False)
     assert oracle.psnr(exact, fast) > 45.0
     # float IDCT (+-1) and float color (+-1) roundings can compound.
     assert np.abs(exact.astype(int) - fast.astype(int)).max() <= 4
 
 
 def test_unsupported_inputs_raise():
-    from jpeg_gpu_tpu.errors import JpegFormatError, JpegUnsupportedError
+    from jaxjpeg.errors import JpegFormatError, JpegUnsupportedError
 
     with pytest.raises(JpegFormatError):
         decode(b"\x00\x01\x02", impl="host")
@@ -113,52 +113,52 @@ def test_unsupported_inputs_raise():
 
 
 @pytest.mark.parametrize("hw", [(1, 1), (17, 31), (9, 200), (8, 8)])
-def test_edge_sizes_tpu_vs_host(hw):
+def test_edge_sizes_device_vs_host(hw):
     """Odd and tiny dimensions decode identically through both engines
     (partial MCUs on both axes, single-sample images)."""
     h, w = hw
     enc = corpus.own_jpeg(
         corpus.synthetic_rgb(h, w, seed=1), subsampling="4:2:0", quality=85
     )
-    a = decode(enc.data, impl="tpu")
+    a = decode(enc.data, impl="device")
     b = decode(enc.data, impl="host")
     np.testing.assert_array_equal(a, b)
     assert a.shape == (h, w, 3)
 
 
-def test_16bit_quant_tables_tpu_vs_host():
+def test_16bit_quant_tables_device_vs_host():
     enc = corpus.own_jpeg(
         corpus.synthetic_rgb(40, 56, seed=2), subsampling="4:2:0",
         quality=6, force_16bit_qt=True, restart_interval=2,
     )
-    a = decode(enc.data, impl="tpu")
+    a = decode(enc.data, impl="device")
     b = decode(enc.data, impl="host")
     np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("q", [1, 100])
-def test_extreme_quality_tpu_vs_host(q):
+def test_extreme_quality_device_vs_host(q):
     enc = corpus.own_jpeg(
         corpus.synthetic_rgb(32, 48, seed=3), subsampling="4:2:2",
         quality=q, restart_interval=1,
     )
-    a = decode(enc.data, impl="tpu")
+    a = decode(enc.data, impl="device")
     b = decode(enc.data, impl="host")
     np.testing.assert_array_equal(a, b)
 
 
 def test_all_2x2_sampling_factors():
     """A legal frame with 2x2 sampling on every component has all-zero
-    decimations (indistinguishable from 4:4:4 by decimation alone); it
-    must route through the general pipeline, not the fused SoA path."""
+    decimations (indistinguishable from 4:4:4 by decimation alone); the
+    device must decode it from its sampling factors, like the host."""
     enc = corpus.own_jpeg(
         corpus.synthetic_rgb(40, 56, seed=4), subsampling="4:4:4-2x2",
         quality=85, restart_interval=1,
     )
-    a = decode(enc.data, impl="tpu")
+    a = decode(enc.data, impl="device")
     b = decode(enc.data, impl="host")
     np.testing.assert_array_equal(a, b)
-    c = decode(enc.data, impl="tpu", entropy="device")
+    c = decode(enc.data, impl="device", entropy="device")
     np.testing.assert_array_equal(c, b)
 
 
@@ -175,8 +175,8 @@ def test_scan_huffman_slot_out_of_range_rejected():
     device kernel's (8, ...) tensors): rejected even with validate off."""
     import pytest
 
-    from jpeg_gpu_tpu.errors import JpegFormatError
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.errors import JpegFormatError
+    from jaxjpeg.host.parser import parse
 
     img = corpus.synthetic_gray(16, 16, seed=3)
     data = corpus.pil_jpeg(img, quality=85)
@@ -193,7 +193,7 @@ def test_scan_component_order_permutation_accepted():
     encoded in frame order, so the permuted header misdescribes the
     interleave for same-sampling components; the parse itself must
     succeed and record the scan order."""
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.host.parser import parse
 
     img = corpus.synthetic_rgb(16, 16, seed=3)
     data = corpus.pil_jpeg(img, quality=85, subsampling="4:4:4")
@@ -228,12 +228,12 @@ def test_io_bytes_accounting():
     """Bytes-shipped per stage cut (the reference's img.packed variable):
     pack upload < coef upload for sparse content; device-entropy ships
     the destuffed words; host/pil impls ship nothing."""
-    from jpeg_gpu_tpu.engine.decoder import get_decoder
+    from jaxjpeg.engine.decoder import get_decoder
 
     img = corpus.synthetic_gray(64, 64, seed=21)
     enc = corpus.own_jpeg(img, quality=50, restart_interval=1)
 
-    dec = get_decoder(enc.data, impl="tpu")
+    dec = get_decoder(enc.data, impl="device")
     io_coefs = dec.io_bytes("rgb")
     assert io_coefs["payload"] == "host"
     vb = hb = 8
@@ -242,12 +242,12 @@ def test_io_bytes_accounting():
     assert dec.io_bytes("quant")["download"] == io_coefs["upload"]
     assert dec.io_bytes("dct")["download"] == 2 * io_coefs["upload"]
 
-    dec_pack = get_decoder(enc.data, impl="tpu", upload="pack")
+    dec_pack = get_decoder(enc.data, impl="device", upload="pack")
     io_pack = dec_pack.io_bytes("rgb")
     assert io_pack["payload"] == "pack"
     assert 0 < io_pack["upload"] < io_coefs["upload"]
 
-    dec_dev = get_decoder(enc.data, impl="tpu", entropy="device")
+    dec_dev = get_decoder(enc.data, impl="device", entropy="device")
     io_dev = dec_dev.io_bytes("rgb")
     assert io_dev["payload"] == "bits"
     assert io_dev["upload"] > 0
@@ -262,10 +262,10 @@ def test_io_bytes_device_no_dri():
     (index-scan pseudo segments), so the reported upload must be that
     plan's streams plus the per-pseudo-segment DC bases -- not the
     single-mega-segment plan build_plan would size."""
-    from jpeg_gpu_tpu.engine.decoder import get_decoder
-    from jpeg_gpu_tpu.host import entropy_native
-    from jpeg_gpu_tpu.host.parser import parse
-    from jpeg_gpu_tpu.host.segments import build_plan_auto
+    from jaxjpeg.engine.decoder import get_decoder
+    from jaxjpeg.host import entropy_native
+    from jaxjpeg.host.parser import parse
+    from jaxjpeg.host.segments import build_plan_auto
 
     if not entropy_native.available():
         pytest.skip("native index scan unavailable")
@@ -273,6 +273,6 @@ def test_io_bytes_device_no_dri():
     data = corpus.pil_jpeg(img, quality=85)  # no restart markers
     plan = build_plan_auto(parse(data))
     assert plan.dc_base is not None  # really the pseudo-segment path
-    io = get_decoder(data, impl="tpu", entropy="device").io_bytes("rgb")
+    io = get_decoder(data, impl="device", entropy="device").io_bytes("rgb")
     assert io["payload"] == "bits"
     assert io["upload"] == plan.streams.nbytes + plan.dc_base.nbytes

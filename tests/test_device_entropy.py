@@ -1,4 +1,5 @@
-"""Device (TPU) entropy decoder tests -- interpret mode on CPU.
+"""Device entropy decoder tests on CPU: the Triton kernel in interpret
+mode and the plain jax.numpy version.
 
 Differential against the host decoders across subsampling modes, restart
 intervals and encoders; plus the full on-device decode path through the
@@ -8,12 +9,12 @@ public API.
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.host import entropy
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.engine.device_entropy import entropy_decode_device
-from jpeg_gpu_tpu.errors import JpegFormatError
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.host import entropy
+from jaxjpeg.host.parser import parse
+from jaxjpeg.engine.device_entropy import entropy_decode_device
+from jaxjpeg.errors import JpegFormatError
+from jaxjpeg.testing import corpus
 
 ALL_MODES = ["mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -58,7 +59,7 @@ def test_device_entropy_pil_encoded():
 def test_full_device_decode_rgb_via_api():
     img = corpus.synthetic_gray(48, 48, seed=7)
     data = corpus.pil_jpeg(img, quality=88, restart_marker_blocks=3)
-    a = decode(data, out="rgb", impl="tpu", entropy="device")
+    a = decode(data, out="rgb", impl="device", entropy="device")
     b = decode(data, out="rgb", impl="host")
     np.testing.assert_array_equal(a, b)
 
@@ -66,7 +67,7 @@ def test_full_device_decode_rgb_via_api():
 def test_full_device_decode_yuv_420():
     img = corpus.synthetic_rgb(32, 32, seed=8)
     enc = corpus.own_jpeg(img, subsampling="4:2:0", quality=80, restart_interval=1)
-    a = decode(enc.data, out="yuv", impl="tpu", entropy="device")
+    a = decode(enc.data, out="yuv", impl="device", entropy="device")
     b = decode(enc.data, out="yuv", impl="host")
     for pa, pb in zip(a.planes, b.planes):
         np.testing.assert_array_equal(pa, pb)
@@ -85,11 +86,10 @@ def test_device_entropy_corrupt_stream_flags_error():
 
 
 def test_unrolled_write_position_invariant():
-    """The compiled kernel's triangular accumulate assumes AC symbol i
-    writes zigzag position >= i+1.  That holds because k advances by
-    run+1 >= 1 per coded symbol; assert it over a real scan's pack
-    streams (the unrolled kernel itself is exercised on real hardware --
-    interpret mode cannot run the 63x-unrolled form in test time)."""
+    """AC symbol i of a block writes zig-zag position k >= i+1, k <= 63:
+    k advances by run+1 >= 1 per coded symbol.  The pack expander's
+    segmented cumsum of run+1 relies on it; assert it over a real scan's
+    pack streams."""
     img = corpus.synthetic_rgb(64, 64, seed=12)
     enc = corpus.own_jpeg(img, subsampling="4:2:0", quality=95)
     parsed = parse(enc.data)
@@ -177,75 +177,60 @@ def test_corruption_in_last_segment_detected():
         entropy_decode_device(corrupted, interpret=True)
 
 
-@pytest.mark.parametrize("interleave", [2, 3])
-def test_device_entropy_interleaved(interleave):
-    """U-way interleaved decode (latency-hiding path) is bit-identical.
+@pytest.mark.parametrize("restart", [0, 1, 8])
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_kernel_and_plain_match_host(mode, restart):
+    """The Triton kernel (interpret mode) and the plain jax.numpy version
+    decode the same coefficients as the host decoder, with restart
+    markers (R=1, R=8) and without (R=0: the device index scan finds the
+    MCU starts), and neither falls back to the host."""
+    from jaxjpeg.engine.device_entropy import FALLBACKS
 
-    interleave=3 on a single-batch stream also exercises the zero-stream
-    batch padding (B is padded to a multiple of U and sliced back).
-    """
     img = corpus.synthetic_rgb(40, 56, seed=11)
     enc = corpus.own_jpeg(
-        img, subsampling="4:2:0", quality=80, restart_interval=1
+        img, subsampling=mode, quality=80, restart_interval=restart
     )
-    _check(enc.data, interleave=interleave)
+    parsed = parse(enc.data)
+    ref = entropy.decode_scan(parsed)
+    before = sum(FALLBACKS.values())
+    for interpret in (True, None):
+        res = entropy_decode_device(parsed, interpret=interpret)
+        for a, b in zip(res.coefs, ref.coefs):
+            np.testing.assert_array_equal(np.asarray(a), b.astype(np.int16))
+        if restart == 0:
+            assert res.specsync_stats is not None
+    assert sum(FALLBACKS.values()) == before
 
 
 @pytest.mark.parametrize(
-    "geom,nvmb,nhmb,b",
+    "geom,nvmb,nhmb,mps",
     [
-        ((( 2, 2), (1, 1), (1, 1)), 5, 7, 1),    # 4:2:0
-        (((1, 1), (1, 1), (1, 1)), 9, 31, 1),    # 4:4:4
-        (((1, 1),), 16, 65, 2),                  # mono, 2 kernel batches
-        (((4, 1), (1, 1), (1, 1)), 3, 11, 1),    # 4:1:1
-        (((1, 2), (1, 1), (1, 1)), 8, 8, 1),     # 4:4:0
+        (((2, 2), (1, 1), (1, 1)), 5, 7, 1),    # 4:2:0
+        (((1, 1), (1, 1), (1, 1)), 9, 31, 3),   # 4:4:4, 3 MCUs/segment
+        (((1, 1),), 16, 65, 1),                 # mono, 2 batches
+        (((4, 1), (1, 1), (1, 1)), 3, 11, 2),   # 4:1:1
+        (((1, 2), (1, 1), (1, 1)), 8, 8, 1),    # 4:4:0
     ],
 )
-def test_assemble_soa_r1_fast_path(geom, nvmb, nhmb, b):
-    """The R=1 no-relayout SoA assembly equals the general lane transpose."""
-    from jpeg_gpu_tpu.ops import entropy_device as edev
+def test_assemble_matches_block_loop(geom, nvmb, nhmb, mps):
+    """MCU-major decoder output -> (vb, hb, 8, 8) planes equals placing
+    every block by the scan order definition (T.81 A.2.3)."""
+    from jaxjpeg.ops import entropy_device as edev
 
     bpm = sum(hs * vs for hs, vs in geom)
     n_mcus = nvmb * nhmb
-    assert n_mcus <= b * 1024
+    nseg = -(-n_mcus // mps)
+    n_slots = -(-nseg // 1024) * 1024
     rng = np.random.default_rng(41)
-    kernel_out = rng.integers(
-        -1024, 1024, size=(b, bpm, 64, 8, 128), dtype=np.int16
-    )
-    args = (n_mcus, 1, n_mcus, nhmb, nvmb, geom)
-    fast = edev.assemble_components(kernel_out, *args, soa=True)
-    ref = edev.assemble_components(
-        kernel_out, *args, soa=True, force_general=True
-    )
-    for a, r in zip(fast, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(r))
-
-
-@pytest.mark.slow  # ~3 min: interpret-mode trace of the chunked unroll
-@pytest.mark.parametrize("form", ["packed", "rows"])
-def test_unrolled_chunked_accumulate_forms_bit_identical(form, monkeypatch):
-    """The UNROLLED AC loop (the compiled TPU path's run_iters structure,
-    chunked under lax.cond any-active syncs so interpret mode can afford
-    the trace -- the plain 63x-unrolled form compiles ~20 min on this
-    1-core host) is bit-identical to the fori reference under BOTH
-    accumulate forms: "packed" (the measured default: two 16-bit
-    coefficient rows OR-combined per int32 register) and "rows" (one
-    register per row).  OR is sound because write positions strictly
-    increase per lane (see test_unrolled_write_position_invariant), so
-    it never merges two values; q95 makes the blocks dense enough to hit
-    high zigzag positions and negative values in BOTH register halves.
-    The compiled unrolled form at serving shapes is covered on real
-    hardware by scripts/sweep_differential.py (18-config differential)
-    and scripts/probe_entropy_chunk.py (bit-identity assert per run)."""
-    from jpeg_gpu_tpu.ops import entropy_device as edev
-
-    monkeypatch.setattr(edev, "_ACC_FORM", form)
-    img = corpus.synthetic_gray(16, 24, seed=17)
-    enc = corpus.own_jpeg(img, quality=95, restart_interval=1)
-    parsed = parse(enc.data)
-    ref = entropy.decode_scan(parsed)
-    res = entropy_decode_device(
-        parsed, interpret=True, unroll=True, ac_chunk=9
-    )
-    for a, b in zip(res.coefs, ref.coefs):
-        np.testing.assert_array_equal(np.asarray(a), b.astype(np.int16))
+    out = rng.integers(-1024, 1024, size=(n_slots, mps * bpm, 64), dtype=np.int16)
+    got = edev.assemble_components(out, nseg, mps, n_mcus, nhmb, nvmb, geom)
+    blocks = out[:nseg].reshape(nseg * mps, bpm, 64)
+    for ci, (hs, vs) in enumerate(geom):
+        ref = np.zeros((nvmb * vs, nhmb * hs, 8, 8), np.int16)
+        off = sum(h * v for h, v in geom[:ci])
+        for m in range(n_mcus):
+            my, mx = divmod(m, nhmb)
+            for j in range(hs * vs):
+                sy, sx = divmod(j, hs)
+                ref[my * vs + sy, mx * hs + sx] = blocks[m, off + j].reshape(8, 8)
+        np.testing.assert_array_equal(np.asarray(got[ci]), ref)

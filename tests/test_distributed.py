@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.engine.batch import decode_batch
-from jpeg_gpu_tpu.parallel import distributed
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg.engine.batch import decode_batch
+from jaxjpeg.parallel import distributed
+from jaxjpeg.testing import corpus
 
 
 def _corpus(n=8):

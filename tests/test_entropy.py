@@ -9,10 +9,10 @@ pixels (PSNR-bounded), mirroring the reference's dual-backend strategy
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.host.entropy import decode_scan, destuff
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.info import Subsampling
-from jpeg_gpu_tpu.testing import corpus, oracle
+from jaxjpeg.host.entropy import decode_scan, destuff
+from jaxjpeg.host.parser import parse
+from jaxjpeg.info import Subsampling
+from jaxjpeg.testing import corpus, oracle
 
 ALL_MODES = ["mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -48,7 +48,7 @@ def test_16bit_quant_tables(restart):
 
 
 def _islow_plane(parsed, result, ci):
-    from jpeg_gpu_tpu.ops import idct_islow
+    from jaxjpeg.ops import idct_islow
 
     comp = parsed.header.components[ci]
     q = parsed.header.quant_for(comp).values
@@ -121,7 +121,7 @@ def test_pack_stream_format():
     idx = result.pack_index[0]
     coefs = result.coefs[0]
     # Walk the stream per block and reconstruct; must equal the dense coefs.
-    from jpeg_gpu_tpu.ops.zigzag import ZIGZAG
+    from jaxjpeg.ops.zigzag import ZIGZAG
 
     vb, hb = idx.shape
     for by in range(vb):

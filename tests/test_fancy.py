@@ -8,12 +8,12 @@ entropy decode + islow IDCT + fancy upsample + integer color convert.
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.testing import corpus, oracle
+from jaxjpeg import decode
+from jaxjpeg.testing import corpus, oracle
 
 
 @pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0"])
-@pytest.mark.parametrize("impl", ["host", "tpu"])
+@pytest.mark.parametrize("impl", ["host", "device"])
 def test_fancy_rgb_bit_exact_vs_pil(subsampling, impl):
     img = corpus.synthetic_rgb(67, 93, seed=5)  # odd dims on purpose
     data = corpus.pil_jpeg(img, quality=88, subsampling=subsampling)
@@ -23,7 +23,7 @@ def test_fancy_rgb_bit_exact_vs_pil(subsampling, impl):
 
 
 @pytest.mark.parametrize("mode", ["4:4:0", "4:1:1"])
-@pytest.mark.parametrize("impl", ["host", "tpu"])
+@pytest.mark.parametrize("impl", ["host", "device"])
 def test_fancy_rgb_bit_exact_own_encoder(mode, impl):
     """Direct libjpeg-oracle coverage of the 4:4:0 (h1v2) and 4:1:1
     (h4v1) fancy paths on BOTH impls: libjpeg has no fancy kernel for
@@ -39,7 +39,7 @@ def test_fancy_rgb_bit_exact_own_encoder(mode, impl):
 def test_fancy_device_entropy_path():
     img = corpus.synthetic_rgb(48, 48, seed=7)
     enc = corpus.own_jpeg(img, subsampling="4:2:0", quality=85, restart_interval=1)
-    got = decode(enc.data, out="rgb", impl="tpu", entropy="device", upsample="fancy")
+    got = decode(enc.data, out="rgb", impl="device", entropy="device", upsample="fancy")
     golden = oracle.pil_decode_rgb(enc.data)
     np.testing.assert_array_equal(got, golden)
 
@@ -48,9 +48,9 @@ def test_fancy_batched():
     """Fancy upsampling with a leading batch dim (pipeline is batch-safe)."""
     import jax.numpy as jnp
 
-    from jpeg_gpu_tpu.engine import pipeline
-    from jpeg_gpu_tpu.host.entropy import decode_scan
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.engine import pipeline
+    from jaxjpeg.host.entropy import decode_scan
+    from jaxjpeg.host.parser import parse
 
     img = corpus.synthetic_rgb(32, 48, seed=8)
     data = corpus.pil_jpeg(img, quality=90, subsampling="4:2:0")

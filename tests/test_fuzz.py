@@ -5,9 +5,9 @@ role (GLJ_ENABLE_VALIDATION) as a hard API contract."""
 import numpy as np
 import pytest
 
-import jpeg_gpu_tpu as jt
-from jpeg_gpu_tpu.errors import JpegError
-from jpeg_gpu_tpu.testing import corpus
+import jaxjpeg as jt
+from jaxjpeg.errors import JpegError
+from jaxjpeg.testing import corpus
 
 
 def _attempt(data: bytes) -> None:
@@ -69,6 +69,6 @@ def test_bitflips_device_entropy_no_dri():
         pos = int(rng.integers(2, len(buf)))
         buf[pos] ^= 1 << int(rng.integers(0, 8))
         try:
-            jt.decode(bytes(buf), impl="tpu", entropy="device")
+            jt.decode(bytes(buf), impl="device", entropy="device")
         except JpegError:
             pass

@@ -4,7 +4,7 @@ Mirrors the reference's IEEE 1180-1990 conformance strategy (test/dct.c:229):
 random blocks through fdct -> clamp -> idct, statistical error bounds vs a
 float64 reference IDCT -- but applied to *both* device IDCT paths:
 
-* float (matmul/MXU) path: must meet IEEE-1180 bounds easily,
+* float (matrix-form) path: must meet IEEE-1180 bounds easily,
 * integer islow path: must meet IEEE-1180 bounds AND be bit-identical to
   the numpy reference implementation of the same fixed-point algorithm.
 """
@@ -14,16 +14,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from jpeg_gpu_tpu.ops import idct as idct_ops
-from jpeg_gpu_tpu.ops import idct_islow
-from jpeg_gpu_tpu.testing.oracle import idct8x8_float64
+from jaxjpeg.ops import idct as idct_ops
+from jaxjpeg.ops import idct_islow
+from jaxjpeg.testing.oracle import idct8x8_float64
 
 
 def _ieee1180_blocks(lo: int, hi: int, n: int, seed: int) -> np.ndarray:
     """Random pixel blocks -> float64 fdct -> clamped int coefficients."""
     rng = np.random.default_rng(seed)
     pix = rng.integers(lo, hi + 1, size=(n, 8, 8)).astype(np.float64)
-    from jpeg_gpu_tpu.testing.encoder import _M
+    from jaxjpeg.testing.encoder import _M
 
     coefs = np.einsum("ui,nij,vj->nuv", _M, pix, _M)
     return np.clip(np.round(coefs), -2048, 2047).astype(np.int32)

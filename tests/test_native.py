@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.host import entropy, entropy_native
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg.host import entropy, entropy_native
+from jaxjpeg.host.parser import parse
+from jaxjpeg.testing import corpus
 
 pytestmark = pytest.mark.skipif(
     not entropy_native.available(), reason="native decoder not built"
@@ -48,17 +48,17 @@ def test_native_pil_encoded_optimized():
 
 
 def test_engine_uses_native_by_default():
-    from jpeg_gpu_tpu import decode
+    from jaxjpeg import decode
 
     img = corpus.synthetic_gray(32, 32, seed=1)
     data = corpus.pil_jpeg(img, quality=85)
-    a = decode(data, out="rgb", impl="tpu", entropy="native")
-    b = decode(data, out="rgb", impl="tpu", entropy="python")
+    a = decode(data, out="rgb", impl="device", entropy="native")
+    b = decode(data, out="rgb", impl="device", entropy="python")
     np.testing.assert_array_equal(a, b)
 
 
 def test_native_rejects_corrupt_stream():
-    from jpeg_gpu_tpu.errors import JpegFormatError
+    from jaxjpeg.errors import JpegFormatError
 
     img = corpus.synthetic_gray(32, 32, seed=1)
     enc = corpus.own_jpeg(img, quality=85)
@@ -78,8 +78,8 @@ def test_native_pack_streams_matches_numpy():
     """The C++ destuff+pack and the numpy fallback build identical streams."""
     from unittest import mock
 
-    from jpeg_gpu_tpu.host import entropy_native, segments
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.host import entropy_native, segments
+    from jaxjpeg.host.parser import parse
 
     if not entropy_native.available():
         pytest.skip("native library unavailable")
@@ -98,8 +98,8 @@ def test_native_pack_streams_matches_numpy():
 def test_native_pack_stream_matches_python():
     """Native (run,value) pack emission is byte-identical to the python
     reference, including per-block index arrays."""
-    from jpeg_gpu_tpu.host import entropy, entropy_native
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.host import entropy, entropy_native
+    from jaxjpeg.host.parser import parse
 
     if not entropy_native.available():
         pytest.skip("native library unavailable")
@@ -121,9 +121,9 @@ def test_build_plan_pinned_nw():
     plan, clean rejection when a segment would truncate."""
     from unittest import mock
 
-    from jpeg_gpu_tpu.errors import JpegUnsupportedError
-    from jpeg_gpu_tpu.host import segments
-    from jpeg_gpu_tpu.host.parser import parse
+    from jaxjpeg.errors import JpegUnsupportedError
+    from jaxjpeg.host import segments
+    from jaxjpeg.host.parser import parse
 
     img = corpus.synthetic_rgb(80, 120, seed=11)
     data = corpus.pil_jpeg(

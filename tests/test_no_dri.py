@@ -10,12 +10,12 @@ then decodes the pseudo-segments restart-parallel, bit-identical.
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.engine.device_entropy import entropy_decode_device
-from jpeg_gpu_tpu.errors import JpegFormatError
-from jpeg_gpu_tpu.host import entropy, entropy_native, segments
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.engine.device_entropy import entropy_decode_device
+from jaxjpeg.errors import JpegFormatError
+from jaxjpeg.host import entropy, entropy_native, segments
+from jaxjpeg.host.parser import parse
+from jaxjpeg.testing import corpus
 
 pytestmark = pytest.mark.skipif(
     not entropy_native.available(), reason="native library unavailable"
@@ -45,7 +45,7 @@ def test_pinned_nw_fused_plan_identical():
     """The serving loop's pinned-nw plan (ONE fused native scan+pack pass,
     xjpeg_index_scan_pack) is byte-identical to the two-pass build, and
     an undersized pin raises instead of truncating (build_plan parity)."""
-    from jpeg_gpu_tpu.errors import JpegUnsupportedError
+    from jaxjpeg.errors import JpegUnsupportedError
 
     d = corpus.pil_jpeg(
         corpus.synthetic_rgb(56, 72, seed=9), quality=92, subsampling="4:2:0"
@@ -78,7 +78,7 @@ def test_no_dri_device_matches_host_foreign_stream():
 def test_no_dri_full_rgb_via_api():
     img = corpus.synthetic_gray(48, 48, seed=8)
     data = corpus.pil_jpeg(img, quality=88)  # no restart markers
-    a = decode(data, out="rgb", impl="tpu", entropy="device")
+    a = decode(data, out="rgb", impl="device", entropy="device")
     b = decode(data, out="rgb", impl="host")
     np.testing.assert_array_equal(a, b)
 

@@ -10,9 +10,9 @@ mirroring the reference's dual-backend differential design
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.host import oracle_native
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.host import oracle_native
+from jaxjpeg.testing import corpus
 
 pytestmark = pytest.mark.skipif(
     not oracle_native.available(), reason="system libjpeg shim unavailable"
@@ -27,7 +27,7 @@ def _foreign(mode, h=48, w=64, seed=21, **kw):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("impl", ["host", "tpu"])
+@pytest.mark.parametrize("impl", ["host", "device"])
 def test_quant_cut_matches_libjpeg(mode, impl):
     data = _foreign(mode)
     ours = decode(data, out="quant", impl=impl)
@@ -56,7 +56,7 @@ def test_dct_cut_matches_libjpeg(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("impl", ["host", "tpu"])
+@pytest.mark.parametrize("impl", ["host", "device"])
 def test_yuv_cut_matches_libjpeg(mode, impl):
     """Pre-upsample planes: islow IDCT makes these bit-exact."""
     data = _foreign(mode, seed=24)
@@ -80,6 +80,6 @@ def test_rgb_exact_matches_libjpeg_shim_fancy():
     """Full RGB vs the shim's pinned islow+fancy decode (not Pillow's
     convert() path): bit-exact for the subsampled exact contract."""
     data = _foreign("4:2:0", seed=26)
-    ours = decode(data, out="rgb", impl="tpu", exact=True, upsample="fancy")
+    ours = decode(data, out="rgb", impl="device", exact=True, upsample="fancy")
     ref = oracle_native.libjpeg_rgb(data, fancy=True)
     np.testing.assert_array_equal(np.asarray(ours), ref)

@@ -1,14 +1,14 @@
-"""PACK-mode device expander tests (interpret mode on CPU)."""
+"""PACK-mode device expander tests."""
 
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.host.entropy import decode_scan
-from jpeg_gpu_tpu.host.pack_plan import build_pack_plan
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.engine.device_entropy import expand_pack_device
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.host.entropy import decode_scan
+from jaxjpeg.host.pack_plan import build_pack_plan
+from jaxjpeg.host.parser import parse
+from jaxjpeg.engine.device_entropy import expand_pack_device
+from jaxjpeg.testing import corpus
 
 ALL_MODES = ["mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -19,7 +19,7 @@ def test_pack_expand_matches_host(mode):
     enc = corpus.own_jpeg(img, subsampling=mode, quality=80)
     parsed = parse(enc.data)
     scan = decode_scan(parsed, want_pack=True)
-    coefs = expand_pack_device(parsed, scan, interpret=True)
+    coefs = expand_pack_device(parsed, scan)
     for a, b in zip(coefs, scan.coefs):
         np.testing.assert_array_equal(np.asarray(a), b.astype(np.int16))
 
@@ -30,7 +30,7 @@ def test_pack_expand_no_restarts_large_blocks():
     data = corpus.pil_jpeg(img, quality=90)
     parsed = parse(data)
     scan = decode_scan(parsed, want_pack=True)
-    coefs = expand_pack_device(parsed, scan, interpret=True)
+    coefs = expand_pack_device(parsed, scan)
     np.testing.assert_array_equal(
         np.asarray(coefs[0]), scan.coefs[0].astype(np.int16)
     )
@@ -39,7 +39,7 @@ def test_pack_expand_no_restarts_large_blocks():
 def test_pack_upload_rgb_via_api():
     img = corpus.synthetic_rgb(40, 40, seed=6)
     enc = corpus.own_jpeg(img, subsampling="4:2:0", quality=85)
-    a = decode(enc.data, out="rgb", impl="tpu", upload="pack")
+    a = decode(enc.data, out="rgb", impl="device", upload="pack")
     b = decode(enc.data, out="rgb", impl="host")
     np.testing.assert_array_equal(a, b)
 

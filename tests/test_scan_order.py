@@ -7,19 +7,18 @@ All three entropy decoders must decode the permuted MCU interleave and
 emit FRAME-ordered outputs.
 
 vsamp=4 geometries (1x4, 4x4, 2x4) are accepted by the parser like the
-reference (xjpeg.c:386,391) but emitted by no common encoder; they route
-through the general (unfused) pixel path.
+reference (xjpeg.c:386,391) but emitted by no common encoder.
 """
 
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.engine.device_entropy import entropy_decode_device
-from jpeg_gpu_tpu.errors import JpegFormatError
-from jpeg_gpu_tpu.host import entropy, entropy_native
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.engine.device_entropy import entropy_decode_device
+from jaxjpeg.errors import JpegFormatError
+from jaxjpeg.host import entropy, entropy_native
+from jaxjpeg.host.parser import parse
+from jaxjpeg.testing import corpus
 
 PERMS = [(2, 0, 1), (1, 0, 2), (2, 1, 0)]
 
@@ -67,10 +66,10 @@ def test_device_decode_out_of_order_scan(mode, restart):
 
 
 def test_out_of_order_rgb_cross_impl():
-    """Full RGB decode agrees between host and tpu impls on a permuted scan."""
+    """Full RGB decode agrees between host and device impls on a permuted scan."""
     enc = _enc("4:2:0", 2, (1, 2, 0), h=40, w=48)
     a = decode(enc.data, out="rgb", impl="host")
-    b = decode(enc.data, out="rgb", impl="tpu")
+    b = decode(enc.data, out="rgb", impl="device")
     np.testing.assert_array_equal(a, b)
 
 
@@ -79,7 +78,7 @@ def test_out_of_order_tolerance_exceeds_libjpeg():
     ("Invalid component ID ... in SOS" -- measured via the ctypes oracle);
     we accept them and reorder to frame positions.  Strictly more
     tolerant, never silently different on streams libjpeg accepts."""
-    from jpeg_gpu_tpu.host import oracle_native
+    from jaxjpeg.host import oracle_native
 
     enc = _enc("4:4:4", 0, (2, 0, 1), h=33, w=47)
     if oracle_native.available():
@@ -140,9 +139,9 @@ def test_vsamp4_device_matches_host(mode):
 
 @pytest.mark.parametrize("mode", ["h1v4", "h4v4"])
 def test_vsamp4_rgb_cross_impl(mode):
-    """Full RGB through the general pixel path: host == tpu."""
+    """Full RGB through the general pixel path: host == device."""
     img = corpus.synthetic_rgb(40, 48, seed=16)
     enc = corpus.own_jpeg(img, subsampling=mode, quality=82, restart_interval=2)
     a = decode(enc.data, out="rgb", impl="host")
-    b = decode(enc.data, out="rgb", impl="tpu")
+    b = decode(enc.data, out="rgb", impl="device")
     np.testing.assert_array_equal(a, b)

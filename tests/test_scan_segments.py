@@ -9,8 +9,8 @@ sequence validation, truncated streams with no terminating marker.
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.errors import JpegFormatError
-from jpeg_gpu_tpu.host.parser import _scan_entropy_segments
+from jaxjpeg.errors import JpegFormatError
+from jaxjpeg.host.parser import _scan_entropy_segments
 
 
 def _scan(data, expected=None, validate=True):

@@ -1,13 +1,13 @@
-"""Distributed fully-on-device decode: segments over ICI, rows over space."""
+"""Distributed fully-on-device decode: segments over data, rows over space."""
 
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.engine.device_entropy import decode_image_device_sharded
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.parallel.mesh import make_mesh
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.engine.device_entropy import decode_image_device_sharded
+from jaxjpeg.host.parser import parse
+from jaxjpeg.parallel.mesh import make_mesh
+from jaxjpeg.testing import corpus
 
 
 @pytest.mark.parametrize("space", [1, 2])
@@ -57,7 +57,7 @@ def test_sharded_corpus_device_decode_matches_host(space):
     """decode_batch(mesh=..., entropy='device'): the full BASELINE
     config #4 shape -- distinct images (per-image optimized tables),
     entropy sharded over the chip grid, pixel rows over space."""
-    from jpeg_gpu_tpu.engine.batch import decode_batch
+    from jaxjpeg.engine.batch import decode_batch
 
     datas = [
         corpus.pil_jpeg(
@@ -78,7 +78,7 @@ def test_sharded_corpus_device_decode_matches_host(space):
 
 
 def test_sharded_corpus_device_decode_gray_general_path():
-    from jpeg_gpu_tpu.engine.batch import decode_batch
+    from jaxjpeg.engine.batch import decode_batch
 
     datas = [
         corpus.pil_jpeg(
@@ -98,7 +98,7 @@ def test_sharded_corpus_device_decode_gray_general_path():
 def test_sharded_device_decode_no_dri():
     """A DRI-less stream decodes distributed too: the index-scan pseudo
     segments shard over data and their DC bases are applied per shard."""
-    from jpeg_gpu_tpu.host import entropy_native
+    from jaxjpeg.host import entropy_native
 
     if not entropy_native.available():
         pytest.skip("native library unavailable")
@@ -130,8 +130,8 @@ def test_sharded_spec_decode_dri_less_matches_host(upsample):
 def test_sharded_spec_falls_back_to_host_scan(monkeypatch):
     """Forced non-eligibility must route the DRI-less sharded decode
     through the serial-scan path with identical pixels."""
-    from jpeg_gpu_tpu.engine import device_entropy as de
-    from jpeg_gpu_tpu.errors import JpegUnsupportedError
+    from jaxjpeg.engine import device_entropy as de
+    from jaxjpeg.errors import JpegUnsupportedError
 
     img = corpus.synthetic_rgb(64, 96, seed=15)
     data = corpus.pil_jpeg(img, quality=85, subsampling="4:2:0")

@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jpeg_gpu_tpu import decode
-from jpeg_gpu_tpu.engine.pipeline import PipelineSpec
-from jpeg_gpu_tpu.host.entropy import decode_scan
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.parallel.mesh import make_mesh
-from jpeg_gpu_tpu.parallel.shard import decode_batch_sharded
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg import decode
+from jaxjpeg.engine.pipeline import PipelineSpec
+from jaxjpeg.host.entropy import decode_scan
+from jaxjpeg.host.parser import parse
+from jaxjpeg.parallel.mesh import make_mesh
+from jaxjpeg.parallel.shard import decode_batch_sharded
+from jaxjpeg.testing import corpus
 
 
 def _batched_inputs(mode, h, w, batch, seed=0):
@@ -34,7 +34,7 @@ def _batched_inputs(mode, h, w, batch, seed=0):
 
 def test_eight_devices_available():
     assert len(jax.devices()) == 8
-    assert jax.default_backend() == "cpu"
+    assert jax.devices()[0].platform == "cpu"
 
 
 @pytest.mark.parametrize("space", [1, 2, 4])
@@ -43,7 +43,7 @@ def test_sharded_decode_matches_single_device(space):
     spec = PipelineSpec.from_header(hdr, exact=True)
     mesh = make_mesh(8, space=space)
     rgb, checksum = decode_batch_sharded(spec, mesh, coefs, qts)
-    ref = decode(enc.data, out="rgb", impl="tpu")
+    ref = decode(enc.data, out="rgb", impl="device")
     got = np.asarray(rgb)
     for i in range(got.shape[0]):
         np.testing.assert_array_equal(
@@ -88,7 +88,7 @@ def test_sharded_fancy_halo_matches_single_device(space, mode):
     spec = PipelineSpec.from_header(hdr, exact=True, upsample="fancy")
     mesh = make_mesh(8, space=space)
     rgb, _ = decode_batch_sharded(spec, mesh, coefs, qts)
-    ref = decode(enc.data, out="rgb", impl="tpu", upsample="fancy")
+    ref = decode(enc.data, out="rgb", impl="device", upsample="fancy")
     got = np.asarray(rgb)[0][:h, :w]
     np.testing.assert_array_equal(got, ref)
 

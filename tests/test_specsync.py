@@ -9,10 +9,10 @@ extremes, subsequence sizes and the grayscale single-component layout.
 import numpy as np
 import pytest
 
-from jpeg_gpu_tpu.host import entropy_native
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.host.specsync import spec_index_scan
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg.host import entropy_native
+from jaxjpeg.host.parser import parse
+from jaxjpeg.host.specsync import spec_index_scan
+from jaxjpeg.testing import corpus
 
 pytestmark = pytest.mark.skipif(
     not entropy_native.available(), reason="native scan is the ground truth"

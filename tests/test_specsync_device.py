@@ -1,25 +1,24 @@
-"""Device parallel index scan (ops/specsync_device.py), interpret mode.
+"""Device parallel index scan (ops/specsync_device.py) on CPU: the Triton
+kernel in interpret mode and the plain jax.numpy version.
 
 The DRI-less serving path's parallel boundary finder must be bit-exact
-against the serial native scan (the prototype's contract, host/specsync.py
-+ SPECSYNC_r03.json) and fall back to it transparently when it cannot
-converge.  Compiled-kernel coverage runs on real hardware via
-scripts/sweep_differential.py (r=0 configs through entropy="device") and
-scripts/specsync_device_artifact.py.
+against the serial native scan (the prototype's contract,
+host/specsync.py) and fall back to it transparently when it cannot
+converge.  The compiled kernel is checked on the GPU by chip_smoke.py.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from jpeg_gpu_tpu.engine import device_entropy
-from jpeg_gpu_tpu.engine.device_entropy import entropy_decode_device
-from jpeg_gpu_tpu.errors import JpegUnsupportedError
-from jpeg_gpu_tpu.host import entropy_native
-from jpeg_gpu_tpu.host import segments as seg_mod
-from jpeg_gpu_tpu.host.parser import parse
-from jpeg_gpu_tpu.ops import specsync_device as sd
-from jpeg_gpu_tpu.testing import corpus
+from jaxjpeg.engine import device_entropy
+from jaxjpeg.engine.device_entropy import entropy_decode_device
+from jaxjpeg.errors import JpegUnsupportedError
+from jaxjpeg.host import entropy_native
+from jaxjpeg.host import segments as seg_mod
+from jaxjpeg.host.parser import parse
+from jaxjpeg.ops import specsync_device as sd
+from jaxjpeg.testing import corpus
 
 
 def _scan_args(inp):
@@ -34,10 +33,11 @@ def _scan_args(inp):
     )
 
 
+@pytest.mark.parametrize("interpret", [True, None])
 @pytest.mark.parametrize(
     "mode,q", [("4:2:0", 85), ("4:4:4", 92), (None, 75)]
 )
-def test_device_index_scan_matches_native(mode, q):
+def test_device_index_scan_matches_native(mode, q, interpret):
     """Converged device bitpos == the serial native index scan, bit for
     bit, across subsampling modes and a forced-small subsequence size
     (more rounds of the fixed point)."""
@@ -53,8 +53,7 @@ def test_device_index_scan_matches_native(mode, q):
     inp = seg_mod.build_spec_scan_input(parsed, subseq_bytes=32)
     bitpos, ok, stats = sd.device_index_scan(
         *_scan_args(inp),
-        used_slots=inp.used_slots, bpm=inp.bpm, sb=inp.subseq_bytes,
-        maxrec=inp.maxrec, n_mcus=inp.n_mcus, interpret=True,
+        sb=inp.subseq_bytes, n_mcus=inp.n_mcus, interpret=interpret,
     )
     assert bool(ok), np.asarray(stats)
     ref_bitpos, _, _ = entropy_native.index_scan(parsed, 1)
@@ -89,23 +88,27 @@ def test_spec_path_skipped_for_restart_streams():
 
 
 def test_spec_overflow_falls_back_to_serial(monkeypatch):
-    """A stream denser than maxrec's coverage flags overflow; the engine
-    must transparently decode via the serial scan instead."""
+    """A scan that finds fewer MCU starts than the frame needs is not ok
+    (here the scan input claims more MCUs than the stream holds); the
+    engine must transparently decode via the serial scan instead, and
+    count the fallback."""
     img = corpus.synthetic_rgb(48, 64, seed=3)
     data = corpus.pil_jpeg(img, quality=85, subsampling="4:2:0")
     parsed = parse(data)
     real_build = seg_mod.build_spec_scan_input
 
-    def tiny_maxrec(parsed, **kw):
+    def too_many_mcus(parsed, **kw):
         inp = real_build(parsed, **kw)
-        inp.maxrec = 1  # every lane with >1 MCU start overflows
+        inp.n_mcus += 4
         return inp
 
     monkeypatch.setattr(
-        device_entropy, "build_spec_scan_input", tiny_maxrec
+        device_entropy, "build_spec_scan_input", too_many_mcus
     )
+    before = device_entropy.FALLBACKS["scan_not_converged"]
     a = entropy_decode_device(parsed, interpret=True)
     assert a.specsync_stats is None  # fell back
+    assert device_entropy.FALLBACKS["scan_not_converged"] == before + 1
     b = entropy_decode_device(parsed, interpret=True, specsync=False)
     for x, y in zip(a.coefs, b.coefs):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
@@ -132,10 +135,10 @@ def test_spec_unsupported_size_falls_back(monkeypatch):
 def test_full_rgb_decode_via_spec_path():
     """Public API: DRI-less entropy='device' (now the spec path) == the
     host pipeline's RGB, end to end."""
-    import jpeg_gpu_tpu as jt
+    import jaxjpeg as jt
 
     img = corpus.synthetic_rgb(41, 67, seed=11)  # odd dims on purpose
     data = corpus.pil_jpeg(img, quality=88, subsampling="4:2:0")
-    dev = jt.decode(data, impl="tpu", entropy="device")
+    dev = jt.decode(data, impl="device", entropy="device")
     host = jt.decode(data, impl="host")
     np.testing.assert_array_equal(dev, host)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from jpeg_gpu_tpu.ops.zigzag import ZIGZAG, DEZIGZAG, raster_to_zigzag, zigzag_to_raster
+from jaxjpeg.ops.zigzag import ZIGZAG, DEZIGZAG, raster_to_zigzag, zigzag_to_raster
 
 # First and last entries of the standard zig-zag order (ITU T.81 fig. 5).
 _KNOWN_PREFIX = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5]
