@@ -247,8 +247,8 @@ def build_plan(
     # Destuff + word-pack every segment.  The native C++ packer is a
     # single pass per segment (restart-parallel across host threads); the
     # numpy fallback vectorises across the whole scan.  Either way no
-    # per-segment Python loop: that measured 65 ms for a 1080p frame --
-    # twice the device's entire decode time.
+    # per-segment Python loop: at ~8k segments per 1080p frame it would
+    # dominate the plan build.
     from jaxjpeg.host import entropy_native
 
     starts = np.ascontiguousarray(parsed.segments[:, 0])
@@ -521,9 +521,9 @@ def build_spec_scan_input(
         # Two constraints: (a) fill whole 1024-lane batches (padding lanes
         # are pure upload waste), (b) stay comfortably above the measured
         # self-sync distance per round -- rounds ~ sync_distance / SB, and
-        # SPECSYNC_r03 puts sync at roughly 25-30 MCUs, so SB >= 2 average
-        # MCUs keeps convergence well inside max_rounds with the serial
-        # fallback as the safety net.
+        # the numpy prototype (host/specsync.py) put sync at roughly 25-30
+        # MCUs, so SB >= 2 average MCUs keeps convergence well inside
+        # max_rounds with the serial fallback as the safety net.
         bs = max(1, round(n_bytes / (SEGMENTS_PER_BATCH * sb_target)))
         sb_fill = -(-n_bytes // (bs * SEGMENTS_PER_BATCH))
         sb_density = int(2 * avg_bits / 8)

@@ -180,8 +180,8 @@ def upsample_fancy_h2_padded(plane: jax.Array, axis: int, true_n: int) -> jax.Ar
 
     Same arithmetic as upsample_fancy_h2, but neighbors come from
     slice-concats with the true edge clamped in place, so every op runs on
-    the aligned padded shape (jnp.pad on cropped odd shapes measured far
-    slower); outputs beyond 2*true_n are garbage the caller crops.
+    the aligned padded shape; outputs beyond 2*true_n are garbage the
+    caller crops.
     """
     x = plane.astype(jnp.int16)
     left, right = _row_clamped_neighbors(x, axis, true_n)

@@ -81,9 +81,9 @@ def dequant_idct_float_plane(coefs: jax.Array, qtable: jax.Array) -> jax.Array:
 
     Same arithmetic as dequant_idct_pixels + blocks_to_plane, but the
     second pass assembles per-pixel-row outputs in (vb, row, hb, col)
-    order, so the plane is a free reshape -- the standalone u8
-    blocks->plane transpose measured as most of the float path's cost
-    (same trick as ops/idct_islow.dequant_idct_islow_plane).
+    order, so the plane is a free reshape with no standalone u8
+    blocks->plane transpose (same trick as
+    ops/idct_islow.dequant_idct_islow_plane).
     """
     m = jnp.asarray(IDCT_BASIS)
     *lead, vb, hb, _, _ = coefs.shape
