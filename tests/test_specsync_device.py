@@ -142,3 +142,20 @@ def test_full_rgb_decode_via_spec_path():
     dev = jt.decode(data, impl="device", entropy="device")
     host = jt.decode(data, impl="host")
     np.testing.assert_array_equal(dev, host)
+
+
+def test_gather_streams_pad_past_full_word_grid():
+    """Words past the window grid read as 1-bits even when the stream
+    fills the grid exactly (the bit reader's padding contract)."""
+    spw, nws, nw = 2, 5, 3
+    words = np.arange(1024 * spw, dtype=np.int32) + 7  # a full grid
+    padded = np.concatenate([words, np.full(nws, -1, np.int32)])
+    rows = np.lib.stride_tricks.sliding_window_view(padded, nws)[::spw][:1024]
+    windows = jnp.asarray(rows.T.reshape(1, nws, 1024))
+    last = 1024 * spw - 1
+    bitpos = jnp.asarray(np.array([0, last * 32], np.int32))
+    got = np.asarray(sd.gather_entropy_streams(
+        windows, bitpos, nw=nw, spw=spw, nws=nws
+    ))
+    np.testing.assert_array_equal(got[0, :, 0], words[:nw])
+    np.testing.assert_array_equal(got[0, :, 1], [words[last], -1, -1])
